@@ -1,4 +1,4 @@
-"""linearmpc_tpu: a TPU-native linear Model Predictive Control framework.
+"""linearmpc_tpu: a batched, accelerator-native linear Model Predictive Control framework.
 
 Built from scratch on JAX/XLA/Pallas with the capabilities of the reference
 Julia package darnstrom/LinearMPC.jl (see SURVEY.md): condensation of

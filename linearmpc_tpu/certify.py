@@ -162,7 +162,7 @@ def certify(mpc, *, prange=None, AS0=(), iter_limit: int = 60,
                 results[i] = (r > region_tol, c)
         return results
 
-    # WAVE-BATCHED exploration (VERDICT r3 #4): states are expanded in
+    # WAVE-BATCHED exploration: states are expanded in
     # waves of up to ``wave_size``; each wave makes TWO batched oracle
     # calls (phase A: every state's removal cells + its dual-feasible
     # subregion; phase B: every surviving state's addition cells +

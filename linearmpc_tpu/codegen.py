@@ -14,7 +14,7 @@ Two deployment paths, mirroring and extending the reference's L7 layer
   (test/runtests.jl:69-83).
 
 * ``export_compiled`` -- serializes the jitted batched solver via
-  ``jax.export`` together with the packed problem arrays; the TPU-native
+  ``jax.export`` together with the packed problem arrays; the accelerator
   analog of shipping generated C to an embedded target.
 """
 
@@ -42,7 +42,7 @@ _C_SOLVER = r"""
 /* LDP dual active-set solve, allocation-free.
  * Working set stored as index list; each iteration refactorizes the
  * active Gram block with a dense Cholesky (k <= N_DEC, static storage).
- * Same algorithm as the framework's batched TPU kernel. */
+ * Same algorithm as the framework's batched device solver. */
 
 /* soft rows can exceed the decision dimension in the working set (their
  * rho regularization adds an implicit slack direction), so storage is

@@ -3,7 +3,7 @@
 This is the offline "compiler" of the framework (reference src/mpc2mpqp.jl).
 It runs once per problem on the host in NumPy float64 and must be
 numerically identical to the reference semantics; the resulting ``MPQP``
-is then lowered to batched LDP arrays for the TPU solver (ops/ldp.py).
+is then lowered to batched LDP arrays for the device solver (ops/ldp.py).
 
 Resulting problem (reference src/mpc2mpqp.jl:612-647):
 
@@ -440,9 +440,9 @@ def create_objective(mpc, F, Phi, Gamma, C, w: MPCWeights, nu: int, nx: int) -> 
     # with +-1e30, matching src/setup.jl:42-43 -- the reference's own
     # invpend_contact example leaves one binary's umin unset) the raw
     # midpoint injects a +-5e29 linear cost, blowing the condensed
-    # problem's scale to ~1e29 (products ~1e59: fine in native f64, but
-    # past the ~3.4e38 range of the TPU's emulated f64, where it becomes
-    # NaN and poisons the B&B). Minimizer-neutrality of the +-(u-mid)^2/2
+    # problem's scale to ~1e29 (products ~1e59, past f32's ~3.4e38 range,
+    # where f32 bulk phases turn them into NaN and poison the B&B).
+    # Minimizer-neutrality of the +-(u-mid)^2/2
     # term only requires the midpoint over bounds the optimizer can
     # attain, and an INF-clamped bound can never be attained (every
     # accepted incumbent must sit at a bound, and the B&B only ever pins

@@ -8,10 +8,10 @@ src/utils.jl:329-391), then the optimal active sets are enumerated
 host-side by a breadth-first walk over critical-region neighbors with LP
 emptiness checks; each region stores its polyhedron and affine feedback.
 
-Online evaluation is TPU-native and tree-free: all region hyperplanes are
+Online evaluation is batched and tree-free: all region hyperplanes are
 stacked into one matrix, so locating a batch of parameters is a single
 (B, nth) x (nth, n_rows) matmul plus a segment-reduce -- thousands of
-lookups per microsecond on the MXU instead of a sequential BST walk. A
+lookups per microsecond on the accelerator instead of a sequential BST walk. A
 binary search tree (``build_tree``) is also available for host evaluation
 parity with the reference API.
 """
@@ -214,7 +214,7 @@ class ExplicitMPC:
         return None
 
     # -- binary search tree (host point location; reference build_tree!,
-    #    src/explicit.jl:65-71 -- the batched TPU path uses evaluate_batch)
+    #    src/explicit.jl:65-71 -- the batched device path uses evaluate_batch)
     def build_tree(self, *, leaf_size: int = 16, max_depth: int = 24,
                    max_cand: int = 64, lp_tol: float = 1e-9):
         """Exact point-location BST over the region partition.
@@ -247,7 +247,7 @@ class ExplicitMPC:
                 a, b = row / nrm, float(rhs) / nrm
                 # sign-defining coordinate: the largest-magnitude entry
                 # (argmax of a thresholded mask returns index 0 when every
-                # entry is tiny, making the sign key arbitrary; ADVICE r2 #3)
+                # entry is tiny, making the sign key arbitrary)
                 s = 1.0 if (a[np.argmax(np.abs(a))] >= 0) else -1.0
                 key = tuple(np.round(np.append(a * s, b * s), 9))
                 hid = seen.get(key)
@@ -489,8 +489,8 @@ class ExplicitMPC:
         return self.evaluate(theta)
 
     def build_eval_arrays(self, dtype=None):
-        """Stack all region hyperplanes + feedbacks for batched TPU
-        evaluation (the MXU replacement for the reference's BST)."""
+        """Stack all region hyperplanes + feedbacks for batched device
+        evaluation (the matmul replacement for the reference's BST)."""
         import jax.numpy as jnp
 
         dtype = dtype or (jnp.float64 if _x64() else jnp.float32)

@@ -1,6 +1,6 @@
 """Discrete-time LTI plant models with affine offsets and disturbances.
 
-TPU-native re-design of the reference model layer (src/model.jl). The model
+Batched re-design of the reference model layer (src/model.jl). The model
 is a plain host-side container (NumPy float64); the condensation compiler
 consumes it once at setup time, so nothing here needs to be traced.
 

@@ -1,6 +1,6 @@
 """The MPC controller object: declarative spec + compiled solver engine.
 
-Python/TPU twin of the reference's ``MPC`` struct and mutator API
+Python/JAX twin of the reference's ``MPC`` struct and mutator API
 (src/types.jl:108-182, src/setup.jl). Mutators invalidate the compiled
 problem (``mpqp_issetup``); ``setup()`` condenses the spec into an mpQP and
 lowers it to device solver arrays.
@@ -75,9 +75,12 @@ class MPC:
     def invalidate(self):
         self.mpqp_issetup = False
 
-    def setup(self, *, dtype=None) -> "MPC":
+    def setup(self, *, dtype=None, interpret: bool = False) -> "MPC":
         """Condense and lower the problem; the analog of the reference's
-        ``setup!`` + DAQP workspace creation (src/setup.jl:7-29)."""
+        ``setup!`` + DAQP workspace creation (src/setup.jl:7-29).
+
+        ``interpret=True`` runs the fused small-m kernel through the Pallas
+        interpreter, so CPU tests can exercise the GPU route."""
         self.mpqp_issetup = False
         self.mpQP = _condense.mpc2mpqp(self)
         lex = (self.settings.hierarchy == "lexicographic"
@@ -97,6 +100,7 @@ class MPC:
             polish=opts.get("polish", None),
             lexicographic=lex,
             soft_weight=self.settings.soft_weight,
+            interpret=interpret,
         )
         self.mpqp_issetup = True
         return self

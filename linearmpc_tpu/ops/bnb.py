@@ -1,6 +1,6 @@
 """Branch-and-bound over dual active-set relaxations for hybrid MPC.
 
-TPU-native analog of DAQP's MIQP branch-and-bound (reference: ccall at
+Batched analog of DAQP's MIQP branch-and-bound (reference: ccall at
 src/utils.jl:277-280, senses BINARY at src/mpc2mpqp.jl:883-884). A binary
 constraint must hold with equality at its upper or lower bound. Each node
 fixes a subset of binary rows to one bound and solves the relaxation with
@@ -69,14 +69,10 @@ def solve_bnb_single(
     theta = theta.astype(dtype)
     is_bin = ldp.is_binary
 
-    du_t = ldp.du + ldp.Dth @ theta
-    dl_t = ldp.dl + ldp.Dth @ theta
-    # finite sentinel, NOT finfo.max: the TPU's emulated f64 is a
-    # double-double of f32 pairs whose range tops out near f32's
-    # 3.4e38, so finfo(f64).max lands on the device as inf and turns
-    # sentinel arithmetic into inf/NaN (inf < inf incumbent tests,
-    # 0 * inf masks). 1e30 dominates every reachable fval/bound in
-    # both f32 and f64 and stays finite under the emulation
+    du_t = ldp.du + jnp.dot(ldp.Dth, theta, precision=jax.lax.Precision.HIGHEST)
+    dl_t = ldp.dl + jnp.dot(ldp.Dth, theta, precision=jax.lax.Precision.HIGHEST)
+    # finite sentinel: 1e30 dominates every reachable fval/bound in both
+    # f32 and f64 and keeps sentinel arithmetic free of inf/NaN
     big = jnp.asarray(min(float(jnp.finfo(dtype).max), 1e30), dtype)
 
     def body(s: BnBState) -> BnBState:
@@ -102,7 +98,7 @@ def solve_bnb_single(
 
         # fractionality of unfixed binary rows: distance to the nearer
         # *viable* (finite) bound -- never branch onto an infinite bound
-        c = ldp.G @ sol.lam
+        c = jnp.dot(ldp.G, sol.lam, precision=jax.lax.Precision.HIGHEST)
         slack_up = jnp.where(ldp.up_finite, du_t + c, big)
         slack_lo = jnp.where(ldp.lo_finite, -dl_t - c, big)
         frac = jnp.minimum(slack_up, slack_lo)
@@ -175,8 +171,8 @@ def solve_bnb_single(
     )
     final = jax.lax.while_loop(cond, body, init)
     # 1 = proven optimal (tree fully explored); 2 = exact incumbent but
-    # the node limit stopped the search early -- ADVICE r4 (frontier and
-    # monolithic paths report the same distinction)
+    # the node limit stopped the search early (the frontier reports the
+    # same distinction)
     budgeted = (final.top > 0) & (final.nodes >= node_limit)
     status = jnp.where(
         final.inc_found,

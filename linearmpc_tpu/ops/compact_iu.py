@@ -1,9 +1,8 @@
 """Compact working-set dual active-set solver for large m.
 
 The full inverse-update loop (ops/dual_active_set._active_set_loop_iu)
-carries the (m, m) masked working-set inverse per lane, which caps the
-Pallas path near m = 64 (VMEM) and makes the XLA path stream O(m^2) per
-lane per iteration -- the regime where realistic MPC with state
+carries the (m, m) masked working-set inverse per lane, which makes
+every iteration stream O(m^2) per lane -- the regime where realistic MPC with state
 constraints lives (m = 100..500+).
 
 DAQP never materializes an (m, m) object: its recursive LDL' factors the
@@ -18,8 +17,7 @@ plus the slot bookkeeping (``slots`` row indices, ``occ`` mask). The
 iteration is the same Goldfarb-Idnani scheme as the full loop -- pending
 partial-step candidates, dual-unbounded-ray infeasibility detection,
 rank-2 Woodbury updates -- with every working-set operation performed in
-slot space through gathers/scatters (XLA handles these natively; no
-Mosaic constraints apply). Memory and per-iteration work drop from
+slot space through gathers/scatters, which XLA handles natively. Memory and per-iteration work drop from
 O(m^2) to O(s_max^2 + m) per lane, so m = 256+ problems run at full
 batch sizes where the active set stays small (s_max <= n + a few soft
 rows generically).
@@ -58,11 +56,6 @@ def init_compact(Gs: jax.Array, act0: jax.Array, s_max: int) -> CompactCarry:
     occf = occ.astype(Gs.dtype)
     Mw = Mw * occf[:, None] * occf[None, :] + jnp.diag(1.0 - occf)
     Rw = _masked_inverse(Mw)
-    if jax.default_backend() != "cpu":
-        eye = jnp.eye(s_max, dtype=Gs.dtype)
-        for _ in range(2):
-            MR = jnp.dot(Mw, Rw, precision=jax.lax.Precision.HIGHEST)
-            Rw = jnp.dot(Rw, 2.0 * eye - MR, precision=jax.lax.Precision.HIGHEST)
     return CompactCarry(Rw, slots, occ)
 
 
@@ -91,12 +84,8 @@ def _active_set_loop_ciu(
     m = ldp.G.shape[0]
     idx = jnp.arange(m)
     sidx = jnp.arange(s_max)
-    # finite sentinel, NOT finfo.max: the TPU's emulated f64 is a
-    # double-double of f32 pairs whose range tops out near f32's
-    # 3.4e38, so finfo(f64).max lands on the device as inf and turns
-    # sentinel arithmetic into inf/NaN (inf < inf incumbent tests,
-    # 0 * inf masks). 1e30 dominates every reachable fval/bound in
-    # both f32 and f64 and stays finite under the emulation
+    # finite sentinel: 1e30 dominates every reachable fval/bound in both
+    # f32 and f64 and keeps sentinel arithmetic free of inf/NaN
     big = jnp.asarray(min(float(jnp.finfo(dtype).max), 1e30), dtype)
     eps = jnp.finfo(dtype).eps
     Gs = ldp.G_solve + (4.0 * eps) * jnp.eye(m, dtype=dtype)

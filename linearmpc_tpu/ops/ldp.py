@@ -4,7 +4,7 @@ The reference solves the condensed QP with DAQP, whose C core first maps the
 QP to a least-distance problem via a Cholesky factor of H (reference
 src/codegen.jl:239-280 ``qp2ldp`` and the external libdaqp). Here the same
 transform is precomputed once on the host, in a form chosen for lockstep
-batched iteration on TPU:
+batched iteration on an accelerator:
 
   * ``G  = E H^-1 E'`` -- the (row-normalized) dual Gram matrix shared by
     every problem instance in a batch (E = [I_bounds; A]);
@@ -125,9 +125,9 @@ def qp2ldp(mpqp: MPQP, *, soft_weight: float = 1e6, normalize: bool = True,
             w = soft_weight * priority_separation ** (n_lvl - 1 - li)
             rho[rows] = 1.0 / w
 
-    # sentinel-aliasing guard (ADVICE r4): the solvers use 1e30 as the
-    # finite "big" sentinel (TPU emulated f64 tops out near f32's 3.4e38
-    # range, CLAUDE.md), so any legitimately reachable value >= ~1e30
+    # sentinel-aliasing guard: the solvers use 1e30 as the
+    # finite "big" sentinel (it must stay finite in f32 bulk phases, whose
+    # range tops out near 3.4e38), so any legitimately reachable value >= ~1e30
     # would alias it and could be mis-pruned. condense.py sanitizes the
     # known INF-padding cases; warn on anything else that gets close.
     for name, arr, lim in (("du", du, 1e20), ("dl", dl, 1e20),
@@ -140,7 +140,7 @@ def qp2ldp(mpqp: MPQP, *, soft_weight: float = 1e6, normalize: bool = True,
             warnings.warn(
                 f"qp2ldp: |{name}| reaches {float(np.max(finite)):.2e}; "
                 f"values near the solvers' 1e30 finite-infinity sentinel "
-                f"can be mis-pruned (and overflow TPU emulated f64 near "
+                f"can be mis-pruned (and overflow f32 bulk phases near "
                 f"3.4e38). Rescale the problem data.", stacklevel=2)
 
     return LDPData(
@@ -167,7 +167,7 @@ def precompute_subset_inverses(ldp: LDPData) -> np.ndarray:
 
     The masked inverse has the same masked structure, so each dual
     active-set iteration on device collapses to one gather + one matvec --
-    the TPU-lockstep replacement for DAQP's recursive LDL' up/downdates
+    the lockstep-batch replacement for DAQP's recursive LDL' up/downdates
     (speed-of-light path for small m; larger problems use the batched
     masked Cholesky path)."""
     m = ldp.m

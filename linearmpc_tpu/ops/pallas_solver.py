@@ -1,30 +1,28 @@
-"""Fused Pallas TPU kernel for the bulk dual active-set phase.
+"""Fused Pallas (Triton) kernel for the small-m bulk dual active-set phase.
 
-The plain XLA path dispatches ~30 small ops per solver iteration; at
-m ~ 5-12 the batch spends its time in kernel-launch overhead, not compute.
-Here one *entire iteration* -- working-set-inverse gather, multiplier
-solve, blocking test, violation scan, state update -- is a single
-gridless Pallas kernel over the whole lane-major batch resident in VMEM,
-and the iteration loop is an XLA ``lax.scan`` *outside* the kernel:
-28 dispatches per solve instead of ~840 (~45x on the pendulum problem).
+The plain XLA path runs each solver iteration as a chain of small fusions
+under a ``lax.while_loop`` whose predicate travels to the host every
+iteration; at m ~ 5-10 a batch spends its time in launches and syncs, not
+arithmetic. Here the WHOLE bulk loop -- working-set-inverse lookup,
+multiplier solve, blocking test, violation scan, state update -- runs
+inside one kernel launch: a 1-D grid over lane blocks, each block an
+in-kernel ``lax.while_loop`` with its own early exit.
 
-Layout is lane-major: every per-lane vector is an (m, B) block with the
-batch in the minor (lane) dimension, so
-  * the working-set inverse "gather" is a one-hot matmul on the MXU,
-  * the slack update G @ lam is an (m, m) @ (m, B) matmul,
-  * reductions over the constraint dimension are sublane reductions.
+Every per-lane quantity is a Python list of m ``(BL,)`` vectors (one lane
+per thread), so the iteration is pure elementwise arithmetic in registers:
+no padding of the constraint dimension, no cross-thread reductions except
+the block's exit test. The working-set inverse of the current active set
+is read from the precomputed (2^m, m, m) subset-inverse table by indexed
+loads (3.2 KB at m=5, L1/L2 resident). The problem's G, equality and
+immutable masks are compile-time constants: zero entries of G and the
+structurally impossible branches (sign tests on equality rows, candidate
+tests on infinite rows) are dropped while tracing.
 
-Mosaic-lowering constraints discovered on this stack (see CLAUDE.md):
-*gridded* pallas_calls and *in-kernel* lax loops fail to compile, hence
-the gridless whole-batch kernel with the loop outside. Index selection
-uses first-hit masks (no argmin/argmax index vectors), cumsum is a
-lower-triangular matmul, scalar literals are np.float32, and (1, B) rows
-are expanded through explicit ones-column matmuls.
-
-The one-hot table is (2^m, B); the path is gated to m <= PALLAS_MAX_M so
-it stays comfortably inside VMEM. Larger problems use the XLA
-masked-Cholesky path. The f64 refinement phase stays in XLA (Mosaic has
-no f64) and typically verifies convergence in one masked solve per lane.
+The iteration is exactly that of ``dual_active_set._active_set_loop`` with
+a subset cache (same tie-breaking: first index of the min/max); only the
+summation order of the two m-term products differs, so a rare f32
+near-tie may resolve to an adjacent working set -- the engine's f64
+finishing tiers re-check every lane.
 """
 
 from __future__ import annotations
@@ -35,262 +33,172 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANES = 128
 PALLAS_MAX_M = 10
-# In-kernel jnp.dot defaults to ONE bf16 MXU pass on this Mosaic stack
-# (~2.8e-3 relative error; integers above 256 not exactly representable).
-# Every kernel dot therefore requests HIGHEST precision: the one-hot
-# gathers/expansions become exact and G@lam reaches f32 accuracy.
-PREC = jax.lax.Precision.HIGHEST  # one-hot table is (2^m, B_chunk); chunking bounds VMEM
+# lanes per program, one per thread: the kernel takes ~10 us of a ~0.4 ms
+# host-bound batch at B=32768, so block shapes from 128 to 1024 lanes time
+# the same on an H100
+BLOCK_LANES = 128
+NUM_WARPS = 4
+_BIG = np.float32(1e30)  # the XLA loop's finite sentinel
 
 
-def max_chunk_lanes(m: int, vmem_budget_bytes: int = 10 * 2**20) -> int:
-    """Largest lane chunk whose kernel working set fits the VMEM budget:
-    roughly (2^m + ~14 m) f32 per lane plus the (m*m, 2^m) table."""
-    per_lane = (2**m + 14 * m) * 4
-    table = (m * m) * (2**m) * 4
-    lanes = (vmem_budget_bytes - table) // per_lane
-    return max(LANES, (lanes // LANES) * LANES)
-
-
-def _iteration_kernel(
-    subset_ref,   # (m*m, 2^m) f32: subset_inv[s] flattened into column s
-    G_ref,        # (m, m)
-    du_ref,       # (m, B)
-    dl_ref,       # (m, B)
-    eq_ref,       # (m, 1) f32
-    immut_ref,    # (m, 1) f32
-    lam_ref, act_ref, side_ref, done_ref,   # state (m, B); done row-broadcast
-    lam_o, act_o, side_o, done_o,
-    *,
-    m: int,
-    n_subsets: int,
-    B: int,
-    primal_tol: float,
-    sign_tol: float,
-):
+def _bulk_kernel(tbl_ref, du_ref, dl_ref, lam_ref, act_ref, side_ref,
+                 lam_o, act_o, side_o, iters_o, done_o, *,
+                 m, BL, G, eq, immut, max_iter, primal_tol, sign_tol):
     f32 = jnp.float32
-    du = du_ref[:, :]
-    dl = dl_ref[:, :]
-    G = G_ref[:, :]
-    eq = eq_ref[:, :]
-    immut = immut_ref[:, :]
-    lam = lam_ref[:, :]
-    act = act_ref[:, :]
-    side = side_ref[:, :]
-    done = done_ref[:, :]
-    subset = subset_ref[:, :]
-
-    big = np.float32(3.0e38)
-    tiny = np.float32(1e-30)
+    big = _BIG
     ptol = np.float32(primal_tol)
     stol = np.float32(sign_tol)
-    half = np.float32(0.5)
-    one = np.float32(1.0)
-    zero = np.float32(0.0)
-    pow2 = jnp.exp2(jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0).astype(f32))
-    sub_iota = jax.lax.broadcasted_iota(jnp.int32, (n_subsets, B), 0).astype(f32)
-    ones_col = jnp.ones((m, 1), f32)
-    ones_sub = jnp.ones((n_subsets, 1), f32)
-
-    def expand(row):  # (1, B) -> (m, B) via explicit matmul
-        return jnp.dot(ones_col, row, preferred_element_type=f32, precision=PREC)
-
-    ltri = (
-        jax.lax.broadcasted_iota(jnp.int32, (m, m), 0)
-        >= jax.lax.broadcasted_iota(jnp.int32, (m, m), 1)
-    ).astype(f32)
-
-    def first_hit(hit):
-        cs = jnp.dot(ltri, hit, preferred_element_type=f32, precision=PREC)
-        return hit * (cs <= 1.5).astype(f32)
-
-    # one-hot of the active-set bitmask over the subset-inverse table
-    mask_id = jnp.sum(act * pow2, axis=0, keepdims=True)            # (1, B)
-    mask_m = jnp.dot(ones_sub, mask_id, preferred_element_type=f32, precision=PREC)
-    onehot = (sub_iota == mask_m).astype(f32)                       # (2^m, B)
-    inv_flat = jnp.dot(subset, onehot, preferred_element_type=f32, precision=PREC)  # (m*m, B)
-
-    d_side = side * du + (one - side) * dl
-    rhs = -act * d_side
-    lam_star = jnp.concatenate(
-        [
-            jnp.sum(inv_flat[i * m : (i + 1) * m, :] * rhs, axis=0, keepdims=True)
-            for i in range(m)
-        ],
-        axis=0,
-    )
-
-    removable = act * (one - eq)
-    viol_up = (side > half) & (lam_star < -stol)
-    viol_lo = (side <= half) & (lam_star > stol)
-    sign_viol = (removable > half) & (viol_up | viol_lo)
-    sv_f = sign_viol.astype(f32)
-    hv = expand(jnp.max(sv_f, axis=0, keepdims=True))
-
-    # blocking step: first multiplier to cross zero leaves the working set
-    denom = lam - lam_star
-    safe = jnp.where(jnp.abs(denom) > tiny, denom, tiny)
-    alpha_i = jnp.where(sign_viol, lam / safe, big)
-    alpha_min = jnp.min(alpha_i, axis=0, keepdims=True)
-    is_jb = first_hit((alpha_i <= alpha_min).astype(f32))
-    alpha = expand(jnp.clip(alpha_min, zero, one))
-    lam_B = (lam + alpha * (lam_star - lam)) * (one - is_jb)
-    act_B = act * (one - is_jb)
-
-    # acceptance step: add the most violated inactive row
-    c = jnp.dot(G, lam_star, preferred_element_type=f32, precision=PREC)
-    cand = (one - act) * (one - immut)
-    v_up = jnp.where(cand > half, -(du + c), -big)
-    v_lo = jnp.where(cand > half, dl + c, -big)
-    v = jnp.maximum(v_up, v_lo)
-    vmax = jnp.max(v, axis=0, keepdims=True)
-    conv = expand((vmax <= ptol).astype(f32))
-    is_j = first_hit((v >= vmax).astype(f32))
-    grow = is_j * (one - conv)
-    act_A = jnp.maximum(act, grow)
-    add_up = expand(jnp.sum(is_j * (v_up >= v_lo).astype(f32), axis=0, keepdims=True))
-    side_A = side * (one - grow) + grow * add_up
-    lam_A = lam_star * act_A
-
-    new_lam = hv * lam_B + (one - hv) * lam_A
-    new_act = hv * act_B + (one - hv) * act_A
-    new_side = hv * side + (one - hv) * side_A
-    new_done = done + (one - done) * (one - hv) * conv
-
-    lam_o[:, :] = done * lam + (one - done) * new_lam
-    act_o[:, :] = done * act + (one - done) * new_act
-    side_o[:, :] = done * side + (one - done) * new_side
-    done_o[:, :] = new_done
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("m", "n_subsets", "max_iter", "primal_tol", "sign_tol", "interpret"),
-)
-def phase1_pallas(
-    subset_flat,  # (m*m, 2^m) f32
-    G,            # (m, m) f32
-    du_t,         # (B, m) f32 transformed upper bounds
-    dl_t,         # (B, m)
-    eq,           # (m,) f32
-    immut,        # (m,) f32
-    lam0,         # (B, m)
-    act0,         # (B, m) f32
-    side0,        # (B, m) f32
-    *,
-    m: int,
-    n_subsets: int,
-    max_iter: int,
-    primal_tol: float,
-    sign_tol: float,
-    interpret: bool = False,
-):
-    """Run the fused bulk phase; returns (lam, act, side, iters, done)
-    batch-major. B must be a multiple of 128 (lane width)."""
-    B = du_t.shape[0]
-    assert B % LANES == 0, "batch must be a multiple of 128"
-
-    to_lane = lambda a: jnp.asarray(a, jnp.float32).T
-    du_l, dl_l = to_lane(du_t), to_lane(dl_t)
-    lam_l, act_l, side_l = to_lane(lam0), to_lane(act0), to_lane(side0)
-    subset_flat = jnp.asarray(subset_flat, jnp.float32)
-    G = jnp.asarray(G, jnp.float32)
-    eq_c = jnp.asarray(eq, jnp.float32).reshape(m, 1)
-    immut_c = jnp.asarray(immut, jnp.float32).reshape(m, 1)
-
-    kernel = functools.partial(
-        _iteration_kernel, m=m, n_subsets=n_subsets, B=B,
-        primal_tol=primal_tol, sign_tol=sign_tol,
-    )
-    vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    call = pl.pallas_call(
-        kernel,
-        in_specs=[vm()] * 10,
-        out_specs=[vm()] * 4,
-        out_shape=[jax.ShapeDtypeStruct((m, B), jnp.float32)] * 4,
-        interpret=interpret,
-    )
-
-    done0 = jnp.zeros((m, B), jnp.float32)
-
-    def step(carry, _):
-        lam, act, side, done = carry
-        prev_done = done
-        lam, act, side, done = call(
-            subset_flat, G, du_l, dl_l, eq_c, immut_c, lam, act, side, done
-        )
-        # iteration counting: a lane iterated iff it was not already done
-        return (lam, act, side, done), 1.0 - prev_done[0]
-
-    (lam, act, side, done), active_steps = jax.lax.scan(
-        step, (lam_l, act_l, side_l, done0), None, length=max_iter
-    )
-    iters = jnp.sum(active_steps, axis=0)
-    return lam.T, act.T > 0.5, side.T > 0.5, iters.astype(jnp.int32), done[0] > 0.5
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("m", "n_subsets", "max_iter", "primal_tol", "sign_tol", "interpret"),
-)
-def phase1_pallas_while(
-    subset_flat, G, du_t, dl_t, eq, immut, lam0, act0, side0,
-    *,
-    m: int,
-    n_subsets: int,
-    max_iter: int,
-    primal_tol: float,
-    sign_tol: float,
-    interpret: bool = False,
-):
-    """Early-exit variant of ``phase1_pallas``: the iteration kernel runs
-    under a ``lax.while_loop`` that stops as soon as every lane converges.
-    The right bulk phase for warm-started solves (closed-loop rollouts),
-    where most steps finish in 0-3 iterations and a fixed scan budget
-    would burn ~10x the kernel dispatches."""
-    B = du_t.shape[0]
-    assert B % LANES == 0, "batch must be a multiple of 128"
-
-    to_lane = lambda a: jnp.asarray(a, jnp.float32).T
-    du_l, dl_l = to_lane(du_t), to_lane(dl_t)
-    lam_l, act_l, side_l = to_lane(lam0), to_lane(act0), to_lane(side0)
-    subset_flat = jnp.asarray(subset_flat, jnp.float32)
-    G = jnp.asarray(G, jnp.float32)
-    eq_c = jnp.asarray(eq, jnp.float32).reshape(m, 1)
-    immut_c = jnp.asarray(immut, jnp.float32).reshape(m, 1)
-
-    kernel = functools.partial(
-        _iteration_kernel, m=m, n_subsets=n_subsets, B=B,
-        primal_tol=primal_tol, sign_tol=sign_tol,
-    )
-    vm = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    call = pl.pallas_call(
-        kernel,
-        in_specs=[vm()] * 10,
-        out_specs=[vm()] * 4,
-        out_shape=[jax.ShapeDtypeStruct((m, B), jnp.float32)] * 4,
-        interpret=interpret,
-    )
-
-    done0 = jnp.zeros((m, B), jnp.float32)
-    iters0 = jnp.zeros((B,), jnp.float32)
+    rows = range(m)
+    lanes = pl.ds(pl.program_id(0) * BL, BL)
+    du = [du_ref[lanes, i] for i in rows]
+    dl = [dl_ref[lanes, i] for i in rows]
+    lam0 = [lam_ref[lanes, i] for i in rows]
+    act0 = [act_ref[lanes, i] for i in rows]
+    side0 = [side_ref[lanes, i] for i in rows]
+    done0 = jnp.zeros((BL,), jnp.int32)
+    iters0 = jnp.zeros((BL,), jnp.int32)
 
     def cond(c):
-        lam, act, side, done, iters, it = c
-        return (it < max_iter) & (jnp.min(done[0]) < 0.5)
+        *_s, done, _iters, it = c
+        return (it < max_iter) & (jnp.min(done) == 0)
 
     def body(c):
         lam, act, side, done, iters, it = c
-        iters = iters + (1.0 - done[0])
-        lam, act, side, done = call(
-            subset_flat, G, du_l, dl_l, eq_c, immut_c, lam, act, side, done
-        )
-        return (lam, act, side, done, iters, it + 1)
+        mask_id = jnp.zeros((BL,), jnp.int32)
+        for i in rows:
+            mask_id = mask_id + jnp.where(act[i], 1 << i, 0)
+        base = mask_id * (m * m)
+        rhs = [jnp.where(act[i], -jnp.where(side[i], du[i], dl[i]), np.float32(0))
+               for i in rows]
+        # lam* = subset_inv[mask] @ rhs, one indexed load per entry
+        lam_star = []
+        for i in rows:
+            acc = jnp.zeros((BL,), f32)
+            for j in rows:
+                acc = acc + tbl_ref[base + (i * m + j)] * rhs[j]
+            lam_star.append(acc)
+
+        # blocking step: the first multiplier to cross zero leaves the set
+        has_viol = jnp.zeros((BL,), bool)
+        a_min = jnp.full((BL,), big, f32)
+        jb = jnp.zeros((BL,), jnp.int32)
+        for i in rows:
+            if eq[i]:
+                continue
+            sv = act[i] & jnp.where(side[i], lam_star[i] < -stol, lam_star[i] > stol)
+            has_viol = has_viol | sv
+            den = lam[i] - lam_star[i]
+            safe = jnp.where(jnp.abs(den) > np.float32(1e-30), den, np.float32(1e-30))
+            a_i = jnp.where(sv, lam[i] / safe, big)
+            better = a_i < a_min
+            a_min = jnp.where(better, a_i, a_min)
+            jb = jnp.where(better, i, jb)
+        alpha = jnp.clip(a_min, np.float32(0), np.float32(1))
+
+        # acceptance step: add the most violated inactive row
+        v_max = jnp.full((BL,), -big, f32)
+        jsel = jnp.zeros((BL,), jnp.int32)
+        add_up = jnp.zeros((BL,), bool)
+        for i in rows:
+            if immut[i]:
+                continue
+            c_i = jnp.zeros((BL,), f32)
+            for j in rows:
+                if G[i][j] != 0.0:
+                    c_i = c_i + np.float32(G[i][j]) * lam_star[j]
+            cand = ~act[i]
+            v_up = jnp.where(cand, -(du[i] + c_i), -big)
+            v_lo = jnp.where(cand, dl[i] + c_i, -big)
+            v = jnp.maximum(v_up, v_lo)
+            better = v > v_max
+            v_max = jnp.where(better, v, v_max)
+            jsel = jnp.where(better, i, jsel)
+            add_up = jnp.where(better, v_up >= v_lo, add_up)
+        converged = v_max <= ptol
+        live = done == 0
+
+        n_lam, n_act, n_side = [], [], []
+        for i in rows:
+            lam_B = jnp.where(jb == i, np.float32(0),
+                              lam[i] + alpha * (lam_star[i] - lam[i]))
+            act_B = act[i] & (jb != i)
+            grow = (jsel == i) & ~converged
+            act_A = act[i] | grow
+            side_A = jnp.where(grow, add_up, side[i])
+            lam_A = jnp.where(act_A, lam_star[i], np.float32(0))
+            upd = live
+            n_lam.append(jnp.where(upd, jnp.where(has_viol, lam_B, lam_A), lam[i]))
+            n_act.append(jnp.where(upd, jnp.where(has_viol, act_B, act_A), act[i]))
+            n_side.append(jnp.where(upd & ~has_viol, side_A, side[i]))
+        fin = live & ~has_viol & converged
+        done = jnp.where(fin, 1, done)
+        iters = iters + jnp.where(live, 1, 0)
+        return n_lam, n_act, n_side, done, iters, it + 1
 
     lam, act, side, done, iters, _ = jax.lax.while_loop(
-        cond, body, (lam_l, act_l, side_l, done0, iters0, jnp.int32(0))
-    )
-    return lam.T, act.T > 0.5, side.T > 0.5, iters.astype(jnp.int32), done[0] > 0.5
+        cond, body, (lam0, act0, side0, done0, iters0, jnp.int32(0)))
+    for i in rows:
+        lam_o[lanes, i] = lam[i]
+        act_o[lanes, i] = act[i]
+        side_o[lanes, i] = side[i]
+    iters_o[lanes] = iters
+    done_o[lanes] = done > 0
+
+
+def make_bulk_phase(subset_inv, G, is_eq, is_immutable, *, max_iter: int,
+                    primal_tol: float, sign_tol: float, interpret: bool = False):
+    """Build the fused bulk phase for one problem.
+
+    Returns ``bulk(du_t, dl_t, lam0, act0, side0) -> (lam, act, side,
+    iters, done)``, all batch-major: ``du_t``/``dl_t``/``lam0`` (B, m)
+    f32, ``act0``/``side0`` (B, m) bool. Any B: a batch that is not a
+    multiple of ``BLOCK_LANES`` is padded by repeating lane 0 and sliced
+    back. ``interpret=True`` runs the kernel body
+    through the Pallas interpreter (CPU tests); otherwise it is compiled
+    by Triton for the GPU.
+    """
+    subset_inv = np.asarray(subset_inv, np.float64)
+    m = subset_inv.shape[1]
+    if not 0 < m <= PALLAS_MAX_M:
+        raise ValueError(f"fused bulk kernel supports 0 < m <= {PALLAS_MAX_M}, got {m}")
+    tbl = jnp.asarray(subset_inv.reshape(-1), jnp.float32)
+    statics = dict(
+        m=m, BL=BLOCK_LANES,
+        G=tuple(tuple(float(x) for x in row) for row in np.asarray(G, np.float64)),
+        eq=tuple(bool(x) for x in np.asarray(is_eq)),
+        immut=tuple(bool(x) for x in np.asarray(is_immutable)),
+        max_iter=int(max_iter), primal_tol=float(primal_tol),
+        sign_tol=float(sign_tol))
+    BL = BLOCK_LANES
+
+    @jax.jit
+    def bulk(du_t, dl_t, lam0, act0, side0):
+        B = du_t.shape[0]
+        Bp = -(-B // BL) * BL
+
+        def prep(a, dtype):
+            a = a.astype(dtype)
+            if Bp > B:
+                a = jnp.concatenate([a, jnp.repeat(a[:1], Bp - B, axis=0)])
+            return a
+
+        state = jax.ShapeDtypeStruct((Bp, m), jnp.float32)
+        flags = jax.ShapeDtypeStruct((Bp, m), jnp.bool_)
+        outs = pl.pallas_call(
+            functools.partial(_bulk_kernel, **statics),
+            grid=(Bp // BL,),
+            out_shape=[state, flags, flags,
+                       jax.ShapeDtypeStruct((Bp,), jnp.int32),
+                       jax.ShapeDtypeStruct((Bp,), jnp.bool_)],
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+            interpret=interpret,
+            name="lmpc_bulk_small_m",
+        )(tbl, prep(du_t, jnp.float32), prep(dl_t, jnp.float32),
+          prep(lam0, jnp.float32), prep(act0, bool), prep(side0, bool))
+        return tuple(o[:B] for o in outs)
+
+    return bulk

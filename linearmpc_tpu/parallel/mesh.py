@@ -66,3 +66,22 @@ def make_sharded_batch_solver(engine, mesh: Mesh, **solve_kw):
         return solve(thetas)
 
     return sharded_solve
+
+
+def shard_rollout(rollout, mesh: Mesh, *, N: int):
+    """dp-sharded closed loop: each device along ``dp`` runs ``rollout``
+    (a ``build_rollout`` function) on its own slice of the lanes under
+    ``shard_map`` -- no collectives, every lane's scan stays on one device.
+    Returns ``run(x0s, rs) -> RolloutResult`` sharded over ``dp``; the
+    batch must divide evenly over ``dp``."""
+    spec = P("dp")
+
+    @jax.jit
+    def run(x0s, rs):
+        return jax.shard_map(
+            lambda x, r: rollout(x, r, None, N=N), mesh=mesh,
+            in_specs=(spec, spec), out_specs=spec, check_vma=False,
+        )(jnp.asarray(x0s), jnp.asarray(rs))
+
+    return run
+

@@ -7,7 +7,7 @@ with dense stage constraints) one chip's O(m^2) rows or O(m^3) factor can
 be the limit, and the reference has no answer at all (single C solve,
 SURVEY.md section 2.3). Here the constraint-row dimension is sharded over
 the ``mp`` mesh axis and the scenario batch over ``dp``, with explicit
-``shard_map`` collectives (all_gather over ICI) instead of GSPMD guessing:
+``shard_map`` collectives (all_gather over the device interconnect) instead of GSPMD guessing:
 
 * every device holds the full per-lane iteration state (lam, act, side)
   for its ``dp`` shard of lanes, but only an (m/mp, m) row block of the
@@ -19,7 +19,7 @@ the ``mp`` mesh axis and the scenario batch over ``dp``, with explicit
   converges fast without a preconditioner;
 * blocking/acceptance steps are elementwise per lane and run replicated.
 
-This is the TPU-native analog of a distributed Schur/block elimination:
+This is the batched analog of a distributed Schur/block elimination:
 the per-shard row blocks are the Schur blocks, and the reduction over
 shards happens inside every CG matvec rather than in a serial block-LU
 chain (which would idle mp-1 shards at a time).
@@ -80,12 +80,10 @@ def make_mp_batch_solver(
     Gs[:m_true, :m_true] = ldp.G + np.diag(np.asarray(ldp.rho_soft, dtype=np.float64))
     Gs[range(m_true, m), range(m_true, m)] = 1.0
     # ridge on the masked system (rows are G-normalized to unit diagonal,
-    # so this bounds its condition number near 1/ridge): on the TPU's
-    # emulated double-double f64, CG against the UNRIDGED system on
-    # massively degenerate working sets cannot reach the exit tolerance
-    # and the walk cycles -- measured m=1024 on-chip: 5% converged
-    # without the ridge. Same remedy as ops/bnb_frontier.py's maintained
-    # inverse; the final KKT verification keeps the TRUE primal slacks.
+    # so this bounds its condition number near 1/ridge): CG against the
+    # UNRIDGED system on massively degenerate working sets need not reach
+    # the exit tolerance, and the walk then cycles. The final KKT
+    # verification keeps the TRUE primal slacks.
     Gs[range(m), range(m)] += ridge
     G_plain = np.zeros((m, m))
     G_plain[:m_true, :m_true] = ldp.G
@@ -113,32 +111,24 @@ def make_mp_batch_solver(
     # NEAR-UNRIDGED copy is kept alongside: the working-set walk iterates
     # the robustly ridged system (conditioning), then a Richardson polish
     # against this polish target -- each correction solved on the walk
-    # system -- restores accuracy. The polish target keeps a tiny ridge
-    # on TPU (emulated f64): with a strictly positive target ridge the
-    # Richardson iteration matrix I - M_walk^-1 M_polish has spectral
-    # radius <= 1 - rp/ridge < 1 on EVERY eigenspace, including the
-    # masked system's null space, where a ridge-0 target made the
-    # correction grow by res_null/ridge per pass (measured on-chip:
-    # polish passes CREATED NaN lanes, 9 -> 116 of 256). Null-space
-    # multiplier components never affect U (null(G_mask) vectors v have
-    # E'v = 0 exactly, since v'Gv = ||H^-1/2 E'v||^2). On CPU (real
-    # f64) the target ridge is 0 and this reduces to the exact polish.
+    # system -- restores accuracy. A strictly positive ``polish_ridge``
+    # bounds the spectral radius of the Richardson iteration matrix
+    # I - M_walk^-1 M_polish by 1 - rp/ridge < 1 on EVERY eigenspace,
+    # including the masked system's null space (null-space multiplier
+    # components never affect U: null(G_mask) vectors v have E'v = 0
+    # exactly, since v'Gv = ||H^-1/2 E'v||^2). With native f64 the target
+    # ridge is 0 and this is the exact polish.
     if polish_ridge is None:
-        polish_ridge = 0.0 if jax.default_backend() == "cpu" else 1e-8
+        polish_ridge = 0.0
     if polish_steps is None:
-        # emulated f64: each extra Richardson pass compounds the
-        # double-double rounding on ill-conditioned lanes (measured
-        # on-chip: more passes -> more NaN lanes); one pass recovers
-        # most of the ridge-induced error. Real f64 runs the full polish.
-        polish_steps = 4 if jax.default_backend() == "cpu" else 1
+        polish_steps = 4
     Gs_true = Gs.copy()
     Gs_true[range(m), range(m)] -= ridge - polish_ridge
     Gs_sh = jax.device_put(cast(Gs), NamedSharding(mesh, P("mp", None)))
     Gst_sh = jax.device_put(cast(Gs_true), NamedSharding(mesh, P("mp", None)))
     Gp_sh = jax.device_put(cast(G_plain), NamedSharding(mesh, P("mp", None)))
-    # finite sentinel, NOT finfo(f64).max: the TPU's emulated f64 tops out
-    # near f32's 3.4e38 range, so finfo(f64).max lands on-device as inf
-    # and poisons sentinel arithmetic (see ops/dual_active_set.py)
+    # finite sentinel: keeps sentinel arithmetic free of inf/NaN (see
+    # ops/dual_active_set.py)
     big = jnp.asarray(1e30, dtype)
 
     def mp_matvec(G_local, x, act=None):
@@ -156,12 +146,11 @@ def make_mp_batch_solver(
     # primal tolerances (not only on the iteration budget): an
     # under-converged lam_star would silently corrupt the working-set
     # logic on ill-conditioned active sets. The tolerance is per lane
-    # and RELATIVE to ||rhs|| with an absolute floor -- a fixed absolute
-    # target sits below the emulated-f64 residual floor on TPU and every
-    # CG burned its full budget without converging
-    # the relative target must sit ABOVE the CG residual floor
-    # eps * cond(M_ridged): with the 1e-6 ridge and unit-diagonal rows,
-    # cond <= 1e6 and the TPU's emulated-f64 floor is ~2e-9
+    # and RELATIVE to ||rhs|| with an absolute floor: a fixed absolute
+    # target can sit below the achievable residual floor, and every CG
+    # would burn its full budget without converging. The relative target
+    # must sit ABOVE the CG residual floor eps * cond(M_ridged): with the
+    # 1e-6 ridge and unit-diagonal rows, cond <= 1e6
     cg_abs2 = jnp.asarray(min(sign_tol, primal_tol) ** 2 * 1e-4, dtype)
     cg_rel = jnp.asarray(1e-7, dtype)
 
@@ -174,10 +163,9 @@ def make_mp_batch_solver(
 
         The system is NORMALIZED per lane by ||rhs|| before iterating:
         on ill-conditioned masked systems the raw CG iterates (p, q, rr)
-        can overflow the TPU's emulated-f64 range (~3.4e38 -- CLAUDE.md),
-        poisoning whole lanes with NaN multipliers (observed on-chip at
-        m=1024 before the change); with a unit-norm right-hand side every
-        intermediate stays within ~cond(M) of unity."""
+        can grow without bound and poison whole lanes with NaN
+        multipliers; with a unit-norm right-hand side every intermediate
+        stays within ~cond(M) of unity."""
         rn = jnp.sqrt(jnp.sum(rhs * rhs, axis=-1, keepdims=True))
         scale = jnp.maximum(rn, 1e-30)
         rhs_n = rhs / scale

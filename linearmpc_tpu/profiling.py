@@ -4,7 +4,8 @@ The reference's observability surface is per-step wall time in
 ``Simulation.solve_times`` plus the solver's discarded info struct
 (SURVEY.md section 5). Here the engine can be instrumented to accumulate
 batched-solve statistics (solves, iterations, wall time), and
-``trace`` wraps ``jax.profiler`` for kernel-level TPU traces.
+``trace`` wraps ``jax.profiler`` for kernel-level device traces, and
+``device_peaks`` holds the published peak rates a roofline divides by.
 """
 
 from __future__ import annotations
@@ -76,294 +77,35 @@ def instrument(engine) -> SolveStats:
     return stats
 
 
-# -- roofline / MFU accounting ---------------------------------------------
+# -- device peaks ------------------------------------------------------------
 #
-# Model FLOP counts for the production Pallas kernels, so benchmarks can
-# report achieved-vs-peak (MFU) instead of bare solves/s. All counts are
-# per LANE per solver ITERATION; multiply by batch x mean iterations.
-# Peaks are matmul peaks for the f32-accurate path: in-kernel dots run at
-# HIGHEST precision, which on this stack decomposes each f32 matmul into
-# ~6 bf16 MXU passes.
+# Published dense peaks by ``jax.devices()[0].device_kind``, from NVIDIA's
+# H100 SXM data sheet (no sparsity; rates assume the full 700 W limit). A
+# device missing from the table is an error, never a default: a rate
+# divided by the wrong peak is worse than none.
 
-V5E_PEAK_BF16 = 197e12  # TPU v5e MXU peak, bf16 FLOP/s
-V5E_PEAK_F32_HIGHEST = V5E_PEAK_BF16 / 6.0
-
-
-def phase1_flops_per_lane_iter(m: int, n_subsets: int | None = None) -> float:
-    """Small-m bulk kernel (ops/pallas_solver.py): the subset-inverse
-    gather (m^2, 2^m) @ (2^m, B) dominates; plus G@lam, the one-hot
-    expansion, and three first-hit cumsum matmuls."""
-    n_subsets = 2**m if n_subsets is None else n_subsets
-    gather = 2.0 * m * m * n_subsets   # inv_flat one-hot matmul
-    onehot = 2.0 * n_subsets           # mask expansion row
-    dense = 2.0 * m * m * 8            # G@lam, ltri first-hits, expands
-    return gather + onehot + dense
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12,
+        "fp8_flops": 1979e12,
+        "tf32_flops": 495e12,
+        "fp32_flops": 67e12,     # outside the tensor cores
+        "fp64_flops": 34e12,     # outside the tensor cores
+        "hbm_bytes_per_s": 3.35e12,
+        "source": "NVIDIA H100 Tensor Core GPU data sheet, SXM5 column",
+    },
+}
 
 
-def iu_flops_per_lane_iter(m: int) -> float:
-    """Large-m GI inverse-update kernel (ops/pallas_iu.py): four R-matvecs
-    (tile + group-sum one-hot matmuls, 4 m^3 each) and the rank-2 outer
-    update (8 m^3), plus O(m^2) dense work."""
-    return 24.0 * m**3 + 20.0 * m * m
-
-
-def iu_bytes_per_lane_iter(m: int) -> float:
-    """HBM traffic of the carried inverse per lane-iteration (read+write
-    R in f32); the roofline's memory leg."""
-    return 2.0 * 4.0 * m * m
-
-
-def ciu_flops_per_lane_iter(m: int, s: int) -> float:
-    """Compact slot kernel (ops/pallas_ciu.py) per lane-iteration: three
-    (m, m) Gram matvecs (``dot(G, .)`` for the working point, the GI add
-    column, and the changed row) plus three first-hit triangular matmuls
-    at 2 m^2 each; seven (s, s*m)-shaped slot gathers/scatters at
-    2 s^2 m each; and ~6 Rw matvecs plus the rank-2 update at O(s^3).
-    The XLA twin (ops/compact_iu) does the same algebra with einsums."""
-    return 12.0 * m * m + 14.0 * s * s * m + 24.0 * s**3 + 60.0 * m
-
-
-def ciu_bytes_per_lane_iter(m: int, s: int) -> float:
-    """HBM traffic of the compact carry per lane-iteration: the scan
-    outside the gridless kernel re-reads and re-writes the seven (m,)
-    state rows, SEL (s*m,) and Rw (s^2,) in f32 every call."""
-    return 4.0 * (16.0 * m + 2.0 * s * m + 2.0 * s * s)
-
-
-def ciu_mfu_line(engine, solves_per_s: float, mean_iters: float,
-                 value: bool = False):
-    """MFU summary for a compact-tier engine (string for logging, or the
-    bare MFU float with ``value=True``); None/'mfu n/a' when the engine
-    does not expose a compact slot budget."""
-    s = getattr(engine, "ciu_s_max", None)
-    if not s:
-        return None if value else "mfu n/a (no compact slot budget)"
-    m = engine.ldp.m
-    rep = mfu_report(solves_per_s, mean_iters, ciu_flops_per_lane_iter(m, s),
-                     bytes_per_lane_iter=ciu_bytes_per_lane_iter(m, s))
-    if value:
-        return round(rep["mfu"], 5)
-    return (f"roofline {rep['achieved_flops']/1e12:.2f} TFLOP/s "
-            f"(MFU {rep['mfu']*100:.1f}%, HBM {rep['hbm_util']*100:.1f}%, "
-            f"model {rep['model_flops_per_solve']/1e6:.2f} MFLOP/solve)")
-
-
-def ds_polish_flops_per_lane(m: int, n: int) -> float:
-    """Double-single polish kernel (ops/pallas_polish.py), once per solve:
-    subset-inverse gather + double-single (Dekker/Veltkamp EFT, ~4x plain
-    f32 ops) masked re-solve, primal recovery, and KKT residual."""
-    gather = 2.0 * m * m * (2**m)
-    eft = 4.0 * (2.0 * m * m + 4.0 * n * m + 2.0 * m * m)
-    return gather + eft
-
-
-def mfu_report(
-    solves_per_s: float,
-    mean_iters: float,
-    flops_per_lane_iter: float,
-    *,
-    peak_flops: float = V5E_PEAK_F32_HIGHEST,
-    bytes_per_lane_iter: float = 0.0,
-    peak_bytes: float = 819e9,  # v5e HBM bandwidth
-) -> dict:
-    """Achieved FLOP/s and MFU for a measured throughput, with the memory
-    leg when the kernel carries per-lane state through HBM."""
-    fl = solves_per_s * mean_iters * flops_per_lane_iter
-    out = {
-        "achieved_flops": fl,
-        "mfu": fl / peak_flops,
-        "model_flops_per_solve": mean_iters * flops_per_lane_iter,
-    }
-    if bytes_per_lane_iter:
-        bw = solves_per_s * mean_iters * bytes_per_lane_iter
-        out["achieved_bytes_per_s"] = bw
-        out["hbm_util"] = bw / peak_bytes
-    return out
-
-
-# -- why the headline sits near 13M solves/s/chip (roofline argument) -------
-#
-# The pendulum headline (m=5, n=5, B=32768) is NOT FLOP-limited: the
-# phase-1 kernel's model work is ~8 kFLOP/solve, so 13M solves/s is
-# ~0.3 TF against a ~33 TF f32-HIGHEST ceiling (MFU ~0.5-1%). The binding
-# constraints, measured on v5e (BENCH_r02/r03 and the K-sweep probes in
-# round 3):
-#
-#   1. VPU/issue-bound kernel iterations. A gridless phase-1 iteration at
-#      m=5 is ~85% elementwise mask algebra on (m, B) registers -- VPU
-#      work at 8x128/cycle, not MXU work. The measured per-iteration cost
-#      (~8-11 us per 2048-lane chunk) matches the VPU leg, and the fixed
-#      bulk scan runs 2m+20 = 30 iterations regardless of per-lane
-#      convergence (no early exit in lockstep cold batches): ~1.2 ms.
-#   2. The tiered finishers are a further ~1.3 ms of *dependent* work:
-#      the double-single polish re-solves every lane (one more gridless
-#      kernel pass over all chunks, ~1 ms) and the f64 straggler tier
-#      re-solves the top-256 worst lanes in emulated f64 (~1 ms,
-#      partially overlapped by XLA). They cannot start before phase 1
-#      finishes (they consume its working sets), so the program's
-#      critical path is ~2.5 ms/batch -> 12-13M solves/s.
-#
-# Paths not taken, with reasons:
-#   * >= 2 iterations per kernel dispatch: in-kernel loops (fori/while
-#     and even straight-line unrolls) hang or fail this Mosaic stack
-#     (CLAUDE.md); the scan-outside-kernel structure is forced.
-#   * batched 3D dot_general inside the kernel (would collapse the
-#     movement-matrix FLOPs): compiles on this stack but lowers to a
-#     serial per-lane loop -- measured 891 us for a (128,60,60)x(128,60)
-#     batched matvec vs ~50 us for the whole movement-matrix iteration.
-#   * skipping the polish for already-clean lanes: the KKT residual that
-#     decides cleanliness is itself computed by the polish kernel.
-#
-# The honest ceiling statement: at m=5 the solver moves ~100 bytes of
-# per-lane state through ~30 VPU-bound iterations plus two finishing
-# passes; 12-13M solves/s/chip is within ~2x of the VPU-leg bound for
-# this program shape, and 128x the 1e5 target. Larger problems (m >= 24)
-# are where the MXU legs engage (see iu_flops_per_lane_iter; the m=48
-# line runs at ~20-30% HBM utilization on the carried inverse).
-
-
-# -- why the compact tiers sit near 50k/100k solves/s (measured argument) ---
-#
-# m=256 (B=8192, v5e, r4/r5 probes): 167.7 ms/batch -> 48.8k solves/s,
-# model MFU ~3% (ciu_flops_per_lane_iter). The batch splits into three
-# measured legs:
-#
-#   1. Pallas bulk phase ~74 ms. One gridless kernel per GI iteration,
-#      scanned outside (this Mosaic stack compiles neither grids nor
-#      in-kernel loops), 256-lane chunks (the 100M scoped-VMEM ceiling;
-#      512-lane chunks OOM at compile). 32 chunks x ~15 lockstep
-#      iterations x ~150 us: the per-iteration (m, m) matvecs are only
-#      ~4 MFLOP each at these chunk widths, so the kernel is
-#      dispatch/VPU-bound, not MXU-bound -- the same physics as the
-#      headline small-m kernel. r4 already took this leg 184 -> 74 ms
-#      (cap 72 -> 26, s 24 -> 16, 128 -> 256-lane chunks); the remaining
-#      knobs (narrower slots, shorter cap) measurably push lanes into
-#      the expensive guard tiers instead.
-#   2. f64 Richardson finishing ~42 ms: REFINE_C=6 passes, each one
-#      emulated-f64 (B, m) @ (m, m) matmul + f32 slot einsums. Emulated
-#      f64 costs ~6x f32-HIGHEST per MAC, so halving the passes
-#      (LINEARMPC_TPU_CIU_REFINE) bounds the win at ~14% of the batch;
-#      the pass count protects the 1e-9 accuracy contract on
-#      ill-conditioned working sets (the KKT check routes stalls to the
-#      guards, whose cold f64 re-solves cost more than the passes
-#      saved).
-#   3. Second-chance pass + f64 guard ladder + KKT bookkeeping ~50 ms,
-#      serving the <1% straggler tail that gives resolved_frac 1.0000.
-#      This is the price of the honesty contract: dropping the tail
-#      (resolved 0.99) would read as ~40% "faster" on the same silicon.
-#
-# No leg leaves an integer-factor on the table for this kernel design:
-# the bulk is issue-bound below the MXU's useful tile size, and the
-# finishing legs are emulated-f64-bound. A genuinely faster m=256 tier
-# would need either a Mosaic stack that compiles gridded/looped kernels
-# (collapsing the 32-chunk dispatch overhead) or hardware f64.
-
-
-# -- tier-overlap experiment (VERDICT r3 #8) --------------------------------
-
-def overlap_report(mpc, B: int = 32768, seed: int = 0, reps: int = 4) -> dict:
-    """Measure whether batch k+1's phase-1 can overlap batch k's
-    finishing tier. Builds the headline engine's phase-1 and ds-polish
-    stages standalone, times each alone (stream discipline), then times
-    one fused program handed BOTH stages on independent batches -- XLA
-    is free to interleave them if the hardware can.
-
-    Expectation (and the reason a two-stream pipeline was not built into
-    the engine): a v5e chip has ONE TensorCore and executes programs --
-    and compute ops within a program -- serially; with both stages
-    compute-issue-bound there is no idle resource for the second stream
-    to fill, so the fused pair should cost ~= the sum of its parts.
-
-    MEASURED (v5e, invpend m=5, B=32768, r4): phase-1 alone 6.84 ms,
-    ds-polish alone 5.63 ms, fused pair 11.23 ms vs 12.47 ms sum ->
-    fill_frac = 0.099. XLA recovers ~10% by interleaving the polish
-    kernel's f64-emulation VPU tail with the next batch's phase-1
-    dispatch, but both stages are compute-issue-bound as predicted, so
-    a two-stream engine pipeline would lift the 12.9M headline by at
-    most ~5-8% at the cost of doubling the in-flight working set; not
-    built (VERDICT r3 #8: measured, win too small)."""
-    import jax
-    import jax.numpy as jnp
-
-    from .ops.pallas_polish import make_polish_data, polish_max_lanes, polish_pallas
-    from .ops.pallas_solver import max_chunk_lanes, phase1_pallas
-
-    engine = mpc.engine
-    ldp = engine.ldp
-    assert engine._subset_inv is not None and engine.use_pallas
-    m = ldp.m
-    subset_flat = jnp.asarray(
-        engine._subset_inv.reshape(2**m, m * m).T, jnp.float32)
-    G32 = jnp.asarray(ldp.G, jnp.float32)
-    Dth32 = jnp.asarray(ldp.Dth, jnp.float32)
-    du32 = jnp.asarray(ldp.du, jnp.float32)
-    dl32 = jnp.asarray(ldp.dl, jnp.float32)
-    eqf = jnp.asarray(ldp.is_eq, jnp.float32)
-    immutf = jnp.asarray(ldp.is_immutable, jnp.float32)
-    pdata = make_polish_data(ldp, engine._subset_inv)
-    bulk_cap = min(engine.iter_limit, 2 * m + 20)
-    P1_CHUNK = max_chunk_lanes(m)
-    PL_CHUNK = polish_max_lanes(m, ldp.n, ldp.n_theta)
-    PH = jax.lax.Precision.HIGHEST
-
-    def chunked(fn, B, chunk, *arrays):
-        if B <= chunk:
-            return fn(*arrays)
-        outs = [fn(*(a[i: min(i + chunk, B)] for a in arrays))
-                for i in range(0, B, chunk)]
-        # polish_pallas returns DS namedtuples inside its tuple; tree_map
-        # concatenates leaf-wise so both stage signatures work
-        return jax.tree_util.tree_map(
-            lambda *xs: jnp.concatenate(xs), *outs)
-
-    def p1(th):
-        th32 = th.astype(jnp.float32)
-        du_t = du32 + jnp.dot(th32, Dth32.T, precision=PH)
-        dl_t = dl32 + jnp.dot(th32, Dth32.T, precision=PH)
-        Bl = th.shape[0]
-        return phase1_pallas(
-            subset_flat, G32, du_t, dl_t, eqf, immutf,
-            jnp.zeros((Bl, m), jnp.float32),
-            jnp.broadcast_to(eqf > 0.5, (Bl, m)).astype(jnp.float32),
-            jnp.ones((Bl, m), jnp.float32),
-            m=m, n_subsets=2**m, max_iter=bulk_cap,
-            primal_tol=engine.primal_tol, sign_tol=engine.sign_tol)
-
-    phase1_j = jax.jit(lambda th: chunked(p1, th.shape[0], P1_CHUNK, th))
-    polish_j = jax.jit(lambda th, a, s: chunked(
-        lambda t, aa, ss: polish_pallas(pdata, t, aa, ss),
-        th.shape[0], PL_CHUNK, th.astype(jnp.float64), a, s))
-    pair_j = jax.jit(lambda thA, aA, sA, thB: (
-        chunked(lambda t, aa, ss: polish_pallas(pdata, t, aa, ss),
-                thA.shape[0], PL_CHUNK, thA.astype(jnp.float64), aA, sA),
-        chunked(p1, thB.shape[0], P1_CHUNK, thB),
-    ))
-
-    rng = np.random.default_rng(seed)
-    th = jnp.asarray(rng.uniform(-10, 10, (B, ldp.n_theta)))
-    th.block_until_ready()
-
-    def stream(fn, *args):
-        out = fn(*args)
-        jax.tree_util.tree_leaves(out)[0].block_until_ready()
-        best = 1e9
-        for _ in range(3):
-            t0 = time.perf_counter()
-            outs = [fn(*args) for _ in range(reps)]
-            jax.tree_util.tree_leaves(outs[-1])[0].block_until_ready()
-            best = min(best, (time.perf_counter() - t0) / reps)
-        return best
-
-    lam, act, side, iters, done = phase1_j(th)
-    act.block_until_ready()
-    t_p1 = stream(phase1_j, th)
-    t_pol = stream(polish_j, th, act, side)
-    t_pair = stream(pair_j, th, act, side, th)
-    fill = 1.0 - t_pair / (t_p1 + t_pol)
-    rep = {"t_phase1_s": t_p1, "t_polish_s": t_pol,
-           "t_pair_s": t_pair, "t_sum_s": t_p1 + t_pol,
-           "fill_frac": fill}
-    return rep
+def device_peaks(device_kind: str) -> dict:
+    """Published peak rates of the device ``device_kind`` names; raises
+    ``KeyError`` for a device not in ``PEAKS``."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}") from None
 
 
 @contextlib.contextmanager

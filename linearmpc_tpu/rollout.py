@@ -1,4 +1,4 @@
-"""Fused batched closed-loop rollout: the TPU production path.
+"""Fused batched closed-loop rollout: the accelerator production path.
 
 The reference's serial simulation loop (src/simulation.jl:93-113) becomes a
 ``lax.scan`` over time with every per-step stage fused into one jitted
@@ -20,6 +20,8 @@ estimated disturbance channels are merged into theta exactly like
 from __future__ import annotations
 
 from typing import NamedTuple
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +68,10 @@ def build_rollout(mpc, *, plant=None, use_observer=None, polish=None):
     arrays = engine.arrays
     arrays_hi = engine.arrays_hi if (polish is None or polish) else None
     kw = dict(engine._solve_kw)
-    dtype = engine.dtype
+    # with f64 finishing the closed loop (plant, observer, controls) runs
+    # in f64 too; f32 is the solver's bulk-phase precision only
+    dtype = jnp.float64 if arrays_hi is not None else engine.dtype
+    dot = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
 
     model = mpc.model
     nx, nu, ny, nd_model = model.nx, model.nu, model.ny, model.nd
@@ -112,27 +117,13 @@ def build_rollout(mpc, *, plant=None, use_observer=None, polish=None):
         nxo = 0
 
     m = arrays.G.shape[0]
-    # TPU fused paths (lane batch must be a multiple of 128):
-    #  * small m: early-exit Pallas bulk phase + double-single polish per
-    #    scan step (no f64 work);
-    #  * large m: warm-started GI inverse-update kernel with the carried
-    #    masked inverse R riding the scan carry (DAQP warm-start analog),
-    #    plus a short f64 Richardson per step.
+    # small m on a GPU: the fused bulk kernel + f64 finishing per scan step
     fused_solve = getattr(engine, "fused_rollout_solve", None)
-    fused_solve_iu = getattr(engine, "fused_rollout_solve_iu", None)
-    fused_solve_ciu = getattr(engine, "fused_rollout_solve_ciu", None)
-    if polish is not None and not polish:
+    if arrays_hi is None:
         fused_solve = None
-        fused_solve_iu = None
-        fused_solve_ciu = None
 
     def rollout(x0s, rs=None, ds=None, ps=None, N: int = 100):
         B = x0s.shape[0]
-        use_fused = fused_solve is not None and B % 128 == 0
-        use_fused_iu = (not use_fused and fused_solve_iu is not None
-                        and B % 128 == 0)
-        use_fused_ciu = (not use_fused and not use_fused_iu
-                         and fused_solve_ciu is not None and B % 128 == 0)
         x0s = jnp.asarray(x0s, dtype)
 
         # normalize trajectories to (B, N + Np + 1, *) with hold-last padding
@@ -164,14 +155,14 @@ def build_rollout(mpc, *, plant=None, use_observer=None, polish=None):
             return jax.lax.dynamic_slice_in_dim(traj, k0, width, axis=1)
 
         def step(carry, _):
-            x, xo, uprev, lam, act, side, Rc, kk = carry
+            x, xo, uprev, lam, act, side, kk = carry
             d_k = jax.lax.dynamic_slice_in_dim(ds, kk, 1, axis=1)[:, 0, :]
 
-            y_m = x @ C.T + h_off + (d_k @ Dd.T if nd_sim else 0.0)
+            y_m = dot(x, C.T) + h_off + (dot(d_k, Dd.T) if nd_sim else 0.0)
 
             if has_obs:
-                inov = y_m - xo @ oC.T - oh - (d_k @ oDd.T if nd_sim else 0.0)
-                xo = xo + inov @ oK.T
+                inov = y_m - dot(xo, oC.T) - oh - (dot(d_k, oDd.T) if nd_sim else 0.0)
+                xo = xo + dot(inov, oK.T)
                 xhat = xo[:, :nx]
             else:
                 xhat = x
@@ -182,7 +173,7 @@ def build_rollout(mpc, *, plant=None, use_observer=None, polish=None):
                 if r_preview:
                     # reference window: steps k+1 .. k+Np (hold-last)
                     r_flat = window(rs, kk + 1, Np).reshape(B, -1)
-                    parts.append(r_flat @ T2S.T if r_condense else r_flat)
+                    parts.append(dot(r_flat, T2S.T) if r_condense else r_flat)
                 else:
                     parts.append(jax.lax.dynamic_slice_in_dim(rs, kk, 1, axis=1)[:, 0, :])
             if nd:
@@ -204,50 +195,31 @@ def build_rollout(mpc, *, plant=None, use_observer=None, polish=None):
                     parts.append(jax.lax.dynamic_slice_in_dim(ps, kk, 1, axis=1)[:, 0, :])
             theta = jnp.concatenate(parts, axis=1)
 
-            Rc_n = Rc
-            if use_fused:
-                U, lam_n, act_n, side_n, iters_n, status_n = fused_solve(theta, lam, act, side)
-                sol_lam, sol_active, sol_side = lam_n, act_n, side_n
-                u = U[:, :nu].astype(dtype) - xhat @ K.T
-            elif use_fused_iu:
-                U, lam_n, act_n, side_n, iters_n, status_n, Rc_n = (
-                    fused_solve_iu(theta, lam, act, side, Rc))
-                sol_lam, sol_active, sol_side = lam_n, act_n, side_n
-                u = U[:, :nu].astype(dtype) - xhat @ K.T
-            elif use_fused_ciu:
-                U, lam_n, act_n, side_n, iters_n, status_n, Rc_n = (
-                    fused_solve_ciu(theta, lam, act, side, Rc))
-                sol_lam, sol_active, sol_side = lam_n, act_n, side_n
-                u = U[:, :nu].astype(dtype) - xhat @ K.T
+            if fused_solve is not None:
+                U, sol_lam, sol_active, sol_side, iters_n, status_n = fused_solve(
+                    theta, lam, act, side)
             else:
                 sol = jax.vmap(
                     lambda th, l0, a0, s0: solve_single(arrays, th, l0, a0, s0, ldp_hi=arrays_hi, **kw)
                 )(theta, lam, act, side)
-                sol_lam, sol_active, sol_side = sol.lam, sol.active, sol.side
+                U, sol_lam, sol_active, sol_side = sol.U, sol.lam, sol.active, sol.side
                 iters_n, status_n = sol.iters, sol.status
-                u = sol.U[:, :nu].astype(dtype) - xhat @ K.T
+            u = U[:, :nu].astype(dtype) - dot(xhat, K.T)
 
             if has_obs:
-                xo = xo @ oF.T + u @ oG.T + of + (d_k @ oGd.T if nd_sim else 0.0)
+                xo = dot(xo, oF.T) + dot(u, oG.T) + of + (dot(d_k, oGd.T) if nd_sim else 0.0)
 
-            x_next = x @ Fp.T + u @ Gp.T + fp + (d_k @ Gd.T if nd_sim else 0.0)
-            carry = (x_next, xo, u, sol_lam.astype(dtype), sol_active, sol_side,
-                     Rc_n, kk + 1)
+            x_next = dot(x, Fp.T) + dot(u, Gp.T) + fp + (dot(d_k, Gd.T) if nd_sim else 0.0)
+            carry = (x_next, xo, u, sol_lam.astype(dtype), sol_active, sol_side, kk + 1)
             return carry, (x, u, y_m, iters_n, status_n)
 
         xo0 = jnp.zeros((B, nxo), dtype)
         if has_obs:
             xo0 = xo0.at[:, :nx].set(x0s)
-        if use_fused_iu:
-            R0 = engine.iu_R0_init(B)
-        elif use_fused_ciu:
-            R0 = engine.ciu_carry_init(B)
-        else:
-            R0 = jnp.zeros((B, 0, 0), jnp.float32)
         carry0 = (
             x0s, xo0, jnp.zeros((B, nu), dtype),
             jnp.zeros((B, m), dtype), jnp.zeros((B, m), dtype=bool),
-            jnp.ones((B, m), dtype=bool), R0, jnp.int32(0),
+            jnp.ones((B, m), dtype=bool), jnp.int32(0),
         )
         carry, (xs, us, ys, iters, status) = jax.lax.scan(step, carry0, None, length=N)
         return RolloutResult(

@@ -1,4 +1,4 @@
-"""Closed-loop simulation: reference-parity host loop + batched TPU rollout.
+"""Closed-loop simulation: reference-parity host loop + batched device rollout.
 
 Two engines over the same semantics (reference src/simulation.jl:37-116):
 
@@ -6,7 +6,7 @@ Two engines over the same semantics (reference src/simulation.jl:37-116):
   measurement overrides, and callbacks; the parity path for tests.
 * ``make_batch_rollout`` -- a jitted ``lax.scan`` closed loop, vmapped over
   thousands of scenario lanes with a warm-started dual active-set solve per
-  step; the TPU production path (SURVEY.md section 2.3's data-parallel
+  step; the accelerator production path (SURVEY.md section 2.3's data-parallel
   execution model).
 
 Loop order per step k (identical in both): measure -> observer correct ->

@@ -1,8 +1,8 @@
-"""Problem-specification types for the TPU-native linear-MPC framework.
+"""Problem-specification types for the batched linear-MPC framework.
 
 Host-side (NumPy float64) analogs of the reference spec layer
 (src/types.jl). These are declarative containers consumed once by the
-condensation compiler; the online TPU path only ever sees the compiled
+condensation compiler; the online device path only ever sees the compiled
 ``MPQP``/LDP arrays.
 """
 

@@ -1,6 +1,6 @@
 """Host-side linear-algebra helpers (offline/setup path, NumPy float64).
 
-TPU-native equivalents of the reference's offline numerics:
+Equivalents of the reference's offline numerics:
   * ``zoh``       -- zero-order-hold discretization (reference: src/utils.jl:291-295)
   * ``dare``      -- discrete algebraic Riccati solver replacing MatrixEquations.ared
                      (used by reference src/setup.jl:176,197 and src/observer.jl:65)

@@ -5,7 +5,7 @@
 // worker thread per hardware core. Plays the role the external libdaqp C
 // solver plays for the reference (SURVEY.md N1) but is an original,
 // batch-first implementation of the same dual active-set method as the
-// framework's TPU kernel (ops/dual_active_set.py): index-based working set,
+// framework's device solver (ops/dual_active_set.py): index-based working set,
 // per-iteration dense Cholesky of the active Gram block, signed multipliers
 // for double-sided rows, per-row proximal soft weights, equality and
 // immutable senses.

@@ -139,15 +139,15 @@ def test_compact_iu_overflow_flag():
 
 
 def test_compact_engine_path_large_m():
-    """Engine-level compact path (f32 bulk + f64 finishing) at an m that
-    the Pallas IU kernel cannot hold, differential vs the NumPy oracle."""
+    """Engine-level compact path (f32 bulk + f64 finishing) at m > 64,
+    differential vs the NumPy oracle."""
     import jax.numpy as jnp
 
     mpc = _largem_problem(range(2, 26))  # m = 24 + 96 = 120
     mpc.setup(dtype=jnp.float32)
     e = mpc.engine
     assert e.ldp.m > 64
-    assert getattr(e, "use_ciu_batch", False)
+    assert e.bulk_route == "compact"
 
     rng = np.random.default_rng(6)
     B = 64
@@ -203,40 +203,21 @@ def test_inverse_update_bulk_matches_reference():
 
 
 def test_ciu_routing_boundary(monkeypatch):
-    """VERDICT r3 #6: no silent cliff at the compact kernel's VMEM
-    ceiling. At m=512 the engine keeps the Pallas path live by shrinking
-    s_max to fit the lane chunk (bounded at half the heuristic); past the
-    ceiling (m=896) it falls back to the XLA compact loop with the
-    DEFAULT capacity restored."""
+    """No cliff across the old kernel ceilings: every continuous f32
+    engine beyond the subset cache takes the compact route with the
+    default n + 8 slot capacity -- also when compiling for a GPU, where
+    no interpreter is reachable."""
     import jax.numpy as jnp
 
-    monkeypatch.setenv("LINEARMPC_TPU_CIUPALLAS", "interpret")
+    from linearmpc_tpu.ops import engine as engine_mod
 
-    mpc5, _ = lmpc.mpc_examples("invpend", 127, 8)
-    mpc5.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
-                        ks=range(2, 128))
-    mpc5.setup(dtype=jnp.float32)
-    e5 = mpc5.engine
-    assert e5.ldp.m == 512
-    assert e5.use_ciu_batch and e5.use_ciu_pallas
-    assert e5.ciu_s_max == 16          # n + 8 heuristic
-    assert e5._ciu_s2 == 24            # largest capacity that fits at m=512
-
-    # near the kernel ceiling (m ~ 715 at s=16) the Pallas path stays
-    # live with the same 16-slot capacity
-    mpc6, _ = lmpc.mpc_examples("invpend", 157, 8)
-    mpc6.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
-                        ks=range(2, 158))
-    mpc6.setup(dtype=jnp.float32)
-    e6 = mpc6.engine
-    assert e6.ldp.m == 632
-    assert e6.use_ciu_batch and e6.use_ciu_pallas
-    assert e6.ciu_s_max == 16
-
-    mpc9, _ = lmpc.mpc_examples("invpend", 223, 8)
-    mpc9.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
-                        ks=range(2, 224))
-    mpc9.setup(dtype=jnp.float32)
-    e9 = mpc9.engine
-    assert e9.ldp.m == 896
-    assert e9.use_ciu_batch and not e9.use_ciu_pallas
+    monkeypatch.setattr(engine_mod, "accelerator_platform", lambda: "gpu")
+    for Np, m in ((127, 512), (157, 632), (223, 896)):
+        mpc, _ = lmpc.mpc_examples("invpend", Np, 8)
+        mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
+                           ks=range(2, Np + 1))
+        mpc.setup(dtype=jnp.float32)
+        e = mpc.engine
+        assert e.ldp.m == m
+        assert e.bulk_route == "compact" and not e.interpret
+        assert e.ciu_s_max == 16          # n + 8 heuristic

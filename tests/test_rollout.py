@@ -104,43 +104,77 @@ def test_sharded_batch_solver():
     assert np.max(np.abs(U - np.asarray(sol_ref.U))) < 1e-10
 
 
-def test_pallas_kernel_interpret_matches_xla():
-    """The fused Pallas bulk kernel (interpret mode) must agree with the
-    XLA phase-1 path on active sets and multipliers."""
+@pytest.mark.parametrize("Nc, B", [(5, 200), (8, 200), (5, 128), (8, 40)])
+def test_fused_kernel_interpret_matches_xla(Nc, B):
+    """The fused Triton bulk kernel (interpret mode) must agree with its
+    XLA twin, the subset-cache ``_active_set_loop``, lane for lane on
+    working sets and iteration counts -- at m=5 (the headline problem)
+    and m=8, with batches that are and are not a multiple of the lane
+    block."""
     import jax
     import jax.numpy as jnp
 
     from linearmpc_tpu.ops import dual_active_set as das
-    from linearmpc_tpu.ops.pallas_solver import phase1_pallas
+    from linearmpc_tpu.ops.pallas_solver import make_bulk_phase
 
-    mpc, _ = lmpc.mpc_examples("invpend")
+    mpc, _ = lmpc.mpc_examples("invpend", 50, Nc)  # m = Nc bound rows
     mpc.setup(dtype=jnp.float32)
     eng = mpc.engine
-    ldp = eng.ldp
+    ldp, arr = eng.ldp, eng.arrays
     m = ldp.m
+    assert m == Nc and eng._subset_inv is not None
     rng = np.random.default_rng(0)
-    B = 128
-    thetas = np.hstack([
+    thetas = jnp.asarray(np.hstack([
         rng.uniform(-20, 20, (B, 4)), rng.uniform(-20, 20, (B, 2)),
         rng.uniform(-2, 2, (B, 1)),
-    ]).astype(np.float32)
-    du_t = (ldp.du + thetas @ ldp.Dth.T).astype(np.float32)
-    dl_t = (ldp.dl + thetas @ ldp.Dth.T).astype(np.float32)
-    subset_flat = eng._subset_inv.reshape(2**m, m * m).T
-    lam0 = np.zeros((B, m))
-    act0 = np.tile(ldp.is_eq.astype(float), (B, 1))
-    side0 = np.ones((B, m))
-    lam, act, side, iters, done = phase1_pallas(
-        subset_flat, ldp.G, du_t, dl_t, ldp.is_eq.astype(float),
-        ldp.is_immutable.astype(float), lam0, act0, side0,
-        m=m, n_subsets=2**m, max_iter=40, primal_tol=2e-5, sign_tol=1e-6,
-        interpret=True,
-    )
-    assert np.all(np.asarray(done))
-    sol = jax.vmap(
-        lambda th: das.solve_single(eng.arrays, th, max_iter=40, primal_tol=2e-5, sign_tol=1e-6)
-    )(jnp.asarray(thetas))
-    assert np.mean(np.all(np.asarray(act) == np.asarray(sol.active), axis=1)) == 1.0
+    ]), jnp.float32)
+    P = jax.lax.Precision.HIGHEST
+    du_t = arr.du + jnp.dot(thetas, arr.Dth.T, precision=P)
+    dl_t = arr.dl + jnp.dot(thetas, arr.Dth.T, precision=P)
+    cap = 2 * m + 20
+    tol = dict(primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+    bulk = make_bulk_phase(eng._subset_inv, ldp.G, ldp.is_eq, ldp.is_immutable,
+                           max_iter=cap, interpret=True, **tol)
+    act0 = jnp.broadcast_to(arr.is_eq, (B, m))
+    lam, act, side, iters, done = bulk(
+        du_t, dl_t, jnp.zeros((B, m)), act0, jnp.ones((B, m), bool))
+    assert lam.shape == (B, m) and iters.shape == (B,)
+    st = jax.vmap(lambda a, b: das._active_set_loop(
+        arr, a, b, arr.is_eq, arr.is_immutable, jnp.zeros(m, jnp.float32),
+        arr.is_eq, jnp.ones(m, bool), max_iter=cap, use_cholesky=True, **tol,
+    ))(du_t, dl_t)
+    assert np.mean(np.asarray(done)) > 0.99
+    np.testing.assert_array_equal(np.asarray(done), np.asarray(st.done))
+    agree = np.mean(np.all(np.asarray(act) == np.asarray(st.active), axis=1))
+    assert agree > 0.98
+    assert np.mean(np.asarray(iters) == np.asarray(st.iters)) > 0.98
+
+
+@pytest.mark.parametrize("Nc", [5, 8])
+def test_fused_rollout_matches_xla(Nc):
+    """The fused rollout (bulk kernel in interpret mode + f64 finishing
+    per scan step) must produce the same closed loop as the vmapped
+    ``solve_single`` rollout."""
+    import jax.numpy as jnp
+
+    mpc, _ = lmpc.mpc_examples("invpend", 50, Nc)
+    mpc.setup(dtype=jnp.float32, interpret=True)
+    assert mpc.engine.bulk_route == "fused"
+    roll_fused = build_rollout(mpc)
+    mpc2, _ = lmpc.mpc_examples("invpend", 50, Nc)
+    mpc2.setup(dtype=jnp.float32)
+    assert mpc2.engine.bulk_route == "vmap"
+    roll_xla = build_rollout(mpc2)
+
+    rng = np.random.default_rng(5)
+    B, N = 40, 6
+    x0s = rng.uniform(-3, 3, (B, 4))
+    rs = np.zeros((B, 2))
+    rf = roll_fused(x0s, rs, None, N=N)
+    rx = roll_xla(x0s, rs, None, N=N)
+    assert np.all(np.asarray(rf.status) == 1)
+    assert np.max(np.abs(np.asarray(rf.us) - np.asarray(rx.us))) < 1e-8
+    assert np.max(np.abs(np.asarray(rf.xs) - np.asarray(rx.xs))) < 1e-8
 
 
 def test_rollout_reference_preview_matches_host():
@@ -215,48 +249,6 @@ def test_rollout_generalized_parameters():
 
     sim = lmpc.simulate_kw(build(), x0=[1.0, 0.0], N=N, r=np.zeros((2, N)), p=p_traj)
     assert np.max(np.abs(np.asarray(res.us)[0].T - sim.us)) < 1e-8
-
-
-def test_pallas_kernel_interpret_m8():
-    """Fused kernel at m=8 (dcmotor-sized working-set cache) agrees with
-    the XLA phase-1 path in interpret mode."""
-    import jax
-    import jax.numpy as jnp
-
-    from linearmpc_tpu.mpc import MPC as _MPC
-    from linearmpc_tpu.ops import dual_active_set as das
-    from linearmpc_tpu.ops.pallas_solver import phase1_pallas
-
-    mpc, _ = lmpc.mpc_examples("invpend", 50, 8)  # m = 8 bound rows
-    mpc.setup(dtype=jnp.float32)
-    eng = mpc.engine
-    ldp = eng.ldp
-    m = ldp.m
-    assert m == 8 and eng._subset_inv is not None
-    rng = np.random.default_rng(0)
-    B = 128
-    thetas = np.hstack([
-        rng.uniform(-20, 20, (B, 4)), rng.uniform(-20, 20, (B, 2)),
-        rng.uniform(-2, 2, (B, 1)),
-    ]).astype(np.float32)
-    du_t = (ldp.du + thetas @ ldp.Dth.T).astype(np.float32)
-    dl_t = (ldp.dl + thetas @ ldp.Dth.T).astype(np.float32)
-    subset_flat = eng._subset_inv.reshape(2**m, m * m).T
-    lam0 = np.zeros((B, m))
-    act0 = np.tile(ldp.is_eq.astype(float), (B, 1))
-    side0 = np.ones((B, m))
-    lam, act, side, iters, done = phase1_pallas(
-        subset_flat, ldp.G, du_t, dl_t, ldp.is_eq.astype(float),
-        ldp.is_immutable.astype(float), lam0, act0, side0,
-        m=m, n_subsets=2**m, max_iter=52, primal_tol=2e-5, sign_tol=1e-6,
-        interpret=True,
-    )
-    assert np.mean(np.asarray(done)) > 0.99
-    sol = jax.vmap(
-        lambda th: das.solve_single(eng.arrays, th, max_iter=52, primal_tol=2e-5, sign_tol=1e-6)
-    )(jnp.asarray(thetas))
-    agree = np.mean(np.all(np.asarray(act) == np.asarray(sol.active), axis=1))
-    assert agree > 0.98
 
 
 def test_cold_vs_warm_start_equality():

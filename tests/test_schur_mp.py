@@ -18,7 +18,7 @@ def _large_m_mpc():
 
 
 def test_engine_attach_mesh_routes_to_schur():
-    """Engine-level routing (VERDICT r2 #3): after ``attach_mesh`` the
+    """Engine-level routing: after ``attach_mesh`` the
     SAME ``solve_batch`` entry dispatches to the mp-Schur solver and
     agrees with the single-chip path."""
     mpc = _large_m_mpc()
